@@ -1,12 +1,12 @@
 // PlaneverbClient.cs — drop-in C# binding + component layer for the
-// planeverb_tpu engine's C ABI (native/src/pv_engine_client.cpp).
+// planeverb engine's C ABI (native/src/pv_engine_client.cpp).
 //
 // This is the counterpart of the reference's Unity plugin API
 // (/root/reference UnityDemo/.../PlaneverbContext.cs:25-83 P/Invoke facade,
 // PlaneverbObject.cs:203-244 material table, PlaneverbEmitter.cs:52-60
 // per-frame update, PlaneverbAudioSource.cs:171-183 per-frame output poll),
-// rebuilt for the out-of-process TPU engine: the DLL talks newline-delimited
-// JSON over TCP to `python -m planeverb_tpu serve`, so the game process
+// rebuilt for the out-of-process JAX engine: the DLL talks newline-delimited
+// JSON over TCP to `python -m planeverb serve`, so the game process
 // never links Python or JAX. Differences from the reference facade:
 //
 //   * handle-based, not singleton: PlaneverbConnect returns a context handle
@@ -20,7 +20,7 @@
 // Build (no Unity required):   csc PlaneverbClient.cs
 // Unity: drop this file into Assets/, see the PlaneverbUnityAdapter note at
 // the bottom. The native library `libpvengine.so` must be on the library
-// path (build: cc -shared -fPIC -O2 planeverb_tpu/native/src/
+// path (build: cc -shared -fPIC -O2 planeverb/native/src/
 // pv_engine_client.cpp -o libpvengine.so).
 
 using System;
@@ -105,8 +105,8 @@ namespace Planeverb
     /// One engine connection + lifetime. The reference equivalent is the
     /// PlaneverbContext MonoBehaviour (Awake -> PlaneverbInit, OnApplicationQuit
     /// -> PlaneverbExit); here the engine lives in a separate process
-    /// (`python -m planeverb_tpu serve [--mesh N]`), so a game restart never
-    /// recompiles the TPU pipeline.
+    /// (`python -m planeverb serve [--mesh N]`), so a game restart never
+    /// recompiles the device pipeline.
     public sealed class PlaneverbContext : IDisposable
     {
         private IntPtr _ctx;
@@ -121,7 +121,7 @@ namespace Planeverb
             if (_ctx == IntPtr.Zero)
                 throw new InvalidOperationException(
                     $"planeverb engine not reachable at {host}:{port} — " +
-                    "start it with: python -m planeverb_tpu serve");
+                    "start it with: python -m planeverb serve");
             // background=1: the engine iterates continuously like the
             // reference BackgroundProcessor (PvContext.cpp:160).
             // PlaneverbInit returns the simulation sampling rate, -1 on error
@@ -276,7 +276,7 @@ namespace Planeverb
     //   IsWithinPlayerHeadSlice culling (PlaneverbObject.cs:194-200) by
     //   calling CreateObject when the collider's bounds straddle the
     //   listener's ear height and Remove when it leaves the slice; see
-    //   planeverb_tpu/core/objects.py for the engine-side equivalent.
+    //   planeverb/core/objects.py for the engine-side equivalent.
     // ----------------------------------------------------------------------
 
     /// Minimal standalone smoke test: connect, build a room, poll params.

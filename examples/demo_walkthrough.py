@@ -20,12 +20,12 @@ import sys
 
 import numpy as np
 
-import planeverb_tpu as pv
-from planeverb_tpu.dsp import DSPContext
-from planeverb_tpu.dsp.convolver import convolve_offline, resample_ir
-from planeverb_tpu.dsp.reverb import mix_output
-from planeverb_tpu.sandbox.wav import write_wav
-from planeverb_tpu.scene import AABB
+import planeverb as pv
+from planeverb.dsp import DSPContext
+from planeverb.dsp.convolver import convolve_offline, resample_ir
+from planeverb.dsp.reverb import mix_output
+from planeverb.sandbox.wav import write_wav
+from planeverb.scene import AABB
 
 
 def main(out_dir: str = "demo_out") -> None:

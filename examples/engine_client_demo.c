@@ -1,15 +1,15 @@
 /* Game-engine integration example: the flat C ABI, no Python required.
  *
  * Build the binding once (also happens automatically on first Python use):
- *   python -c "from planeverb_tpu.native import build_engine_client_library;\
+ *   python -c "from planeverb.native import build_engine_client_library;\
  *              print(build_engine_client_library())"
- * Start the engine server (hosts the TPU/JAX acoustics context):
- *   python -m planeverb_tpu serve --port 8471
+ * Start the engine server (hosts the JAX acoustics context):
+ *   python -m planeverb serve --port 8471
  * Compile and run this demo:
  *   gcc examples/engine_client_demo.c -o /tmp/pv_demo \
- *       -L planeverb_tpu/native/build -l:$(basename \
- *       planeverb_tpu/native/build/libpvengine-*.so) \
- *       -Wl,-rpath,$PWD/planeverb_tpu/native/build
+ *       -L planeverb/native/build -l:$(basename \
+ *       planeverb/native/build/libpvengine-*.so) \
+ *       -Wl,-rpath,$PWD/planeverb/native/build
  *   /tmp/pv_demo 127.0.0.1 8471
  *
  * The exports mirror the reference's Unity plugin surface

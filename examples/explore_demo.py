@@ -2,7 +2,7 @@
 
 The reference ships a Unity demo game (UnityDemo/PlaneverbTest — a walkable
 scene with singing emitters and a sliding door); this is that experience as
-a terminal game against the TPU engine:
+a terminal game against the acoustics engine:
 
   - WASD / arrow keys walk the listener through a 10x10 m room with a
     doorway wall; the engine re-simulates as you move.
@@ -41,7 +41,7 @@ class ExploreGame:
     DOOR_SHUT_Z = 7.2
 
     def __init__(self):
-        import planeverb_tpu as pv
+        import planeverb as pv
 
         self.pv = pv
         self.ctx = pv.Context(pv.PlaneverbConfig(
@@ -90,7 +90,7 @@ class ExploreGame:
         """Voxelized beta grid memoized per geometry version: most frames
         only move the listener, and re-voxelizing the whole grid on the
         host per keypress is O(nx*ny) for an unchanged map."""
-        from planeverb_tpu.ops import voxelize
+        from planeverb.ops import voxelize
 
         version, boxes = self.ctx.geometry.snapshot()
         cached = getattr(self, "_occupancy_cache", None)

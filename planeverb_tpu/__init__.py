@@ -1,40 +1,39 @@
-"""planeverb_tpu — TPU-native real-time wave-based game acoustics.
+"""Former name of the ``planeverb`` package, kept so that code and commands
+written against it keep working.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of Planeverb
-(Rosen, Godin, Raghuvanshi, SCA 2020; reference C++ at /root/reference):
-a 2D FDTD acoustic simulation of a horizontal world slice encodes impulse
-responses into per-source perceptual parameters (obstruction, wet gain,
-RT60, lowpass cutoff, direction, directivity), and a DSP module renders
-those parameters onto audio.
-
-Quick start::
-
-    import planeverb_tpu as pv
-
-    ctx = pv.Context(pv.PlaneverbConfig(grid_size_x=10, grid_size_y=10),
-                     scene=pv.demo_scene("SmallRoom"))
-    ctx.set_listener_position(5.0, 0.0, 5.0)
-    ctx.step()                       # or ctx.start() for continuous updates
-    out = ctx.result_at(6.0, 5.0)    # acoustic params at a source position
+Importing it, or any module under it, gives the ``planeverb`` module objects
+themselves (one set of modules, caches and classes under both names), and
+``python -m`` with the former name runs ``planeverb/__main__.py``. New code
+imports ``planeverb``.
 """
 
-from planeverb_tpu.config import (CONSTANTS, MATERIALS, BoundaryType,
-                                  PlaneverbConfig, PlaneverbDSPConfig,
-                                  Resolution, compute_grid_params,
-                                  material_r)
-from planeverb_tpu.core.context import Context
-from planeverb_tpu.core.objects import ObjectManager
-from planeverb_tpu.scene import (AABB, AABB3D, Scene, demo_scene, load_pv,
-                                 merge_bounds, save_pv)
-from planeverb_tpu.session import load_session, save_session
-from planeverb_tpu.types import PlaneverbOutput
+import importlib
+import importlib.abc
+import importlib.util
+import sys
 
-__version__ = "0.1.0"
+_PREFIX = __name__ + "."
 
-__all__ = [
-    "AABB", "AABB3D", "BoundaryType", "CONSTANTS", "Context", "MATERIALS",
-    "ObjectManager", "PlaneverbConfig", "PlaneverbDSPConfig",
-    "PlaneverbOutput", "Resolution", "Scene", "compute_grid_params",
-    "demo_scene", "load_pv", "material_r", "merge_bounds", "save_pv",
-    "load_session", "save_session", "__version__",
-]
+
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Finds ``<former name>.x`` as ``planeverb.x``. ``__main__`` is left to
+    the path finder: it finds the file through this package's ``__path__``,
+    which is planeverb's, and gives ``python -m`` the code to run."""
+
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname.startswith(_PREFIX) and not fullname.endswith(".__main__"):
+            return importlib.util.spec_from_loader(fullname, self)
+        return None
+
+    def create_module(self, spec):
+        module = importlib.import_module(
+            "planeverb." + spec.name[len(_PREFIX):])
+        spec.loader_state = module.__spec__   # the import system resets it
+        return module
+
+    def exec_module(self, module):
+        module.__spec__ = module.__spec__.loader_state
+
+
+sys.meta_path.insert(0, _Alias())
+sys.modules[__name__] = importlib.import_module("planeverb")

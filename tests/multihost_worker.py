@@ -26,7 +26,7 @@ def main() -> int:
 
     jax.config.update("jax_platforms", "cpu")
 
-    from planeverb_tpu.parallel import init_distributed
+    from planeverb.parallel import init_distributed
 
     init_distributed(coordinator_address=f"localhost:{port}",
                      num_processes=nproc, process_id=pid)
@@ -38,11 +38,11 @@ def main() -> int:
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     import oracle
-    from planeverb_tpu.config import PlaneverbConfig, compute_grid_params
-    from planeverb_tpu.ops import fdtd, voxelize
-    from planeverb_tpu.parallel import (multihost_grid_mesh, pad_to_mesh,
-                                        simulate_sharded_wide)
-    from planeverb_tpu.scene import demo_scene
+    from planeverb.config import PlaneverbConfig, compute_grid_params
+    from planeverb.ops import fdtd, voxelize
+    from planeverb.parallel import (multihost_grid_mesh, pad_to_mesh,
+                                    simulate_sharded_wide)
+    from planeverb.scene import demo_scene
 
     cfg = PlaneverbConfig(grid_size_x=6.0, grid_size_y=6.0,
                           grid_resolution=275)
@@ -84,18 +84,18 @@ def main() -> int:
                         jnp.asarray(pulse), jnp.int32(lix), jnp.int32(liy))
     want = [float(v) for v in jax.jit(fingerprint)(ref.pressure)]
 
-    # the production Pallas round solver across the same 2-process mesh
-    # (interpret kernels off-TPU; the ppermute halo exchange still crosses
-    # the real process boundary)
-    from planeverb_tpu.parallel import simulate_sharded_pallas
+    # the engine's sharded pass (wide-halo solver + per-shard moments)
+    # across the same 2-process mesh: the ppermute halo exchange crosses
+    # the real process boundary
+    from planeverb.parallel import simulate_moments_sharded
 
-    res_p = simulate_sharded_pallas(
+    res_p, _ = simulate_moments_sharded(
         params, bpad, rpad, jnp.asarray(pulse), jnp.int32(lix),
-        jnp.int32(liy), mesh, nx_pad, ny_pad, halo=2, interpret=True)
+        jnp.int32(liy), mesh, nx_pad, ny_pad, halo=2)
     got_p = [float(v) for v in crop(res_p.pressure)]
 
     print(f"RESULT pid={pid} mesh={dict(mesh.shape)} "
-          f"got={got} got_pallas={got_p} want={want}", flush=True)
+          f"got={got} got_moments={got_p} want={want}", flush=True)
     ok = all(abs(g - w) <= 1e-5 * max(1.0, abs(w)) for g, w in
              zip(got + got_p, want + want))
     return 0 if ok else 1

@@ -12,7 +12,7 @@ behavior of:
 
 Everything runs in float32 to match the reference's ``Real``.
 
-The production JAX/Pallas engine in planeverb_tpu/ is a from-scratch TPU-first
+The production JAX/Pallas engine in planeverb/ is a from-scratch device-first
 design; this oracle exists so golden tests can prove the two agree.
 """
 
@@ -22,9 +22,9 @@ import dataclasses
 
 import numpy as np
 
-from planeverb_tpu.config import (CONSTANTS, GridParams, PlaneverbConfig,
-                                  compute_grid_params, gaussian_pulse)
-from planeverb_tpu.scene import Scene
+from planeverb.config import (CONSTANTS, GridParams, PlaneverbConfig,
+                              compute_grid_params, gaussian_pulse)
+from planeverb.scene import Scene
 
 f32 = np.float32
 

@@ -4,10 +4,10 @@ import numpy as np
 import pytest
 
 import oracle
-from planeverb_tpu.config import PlaneverbConfig, compute_grid_params
-from planeverb_tpu.core.free_grid import calibrate_free_field
-from planeverb_tpu.ops import analyzer, fdtd, voxelize
-from planeverb_tpu.scene import demo_scene
+from planeverb.config import PlaneverbConfig, compute_grid_params
+from planeverb.core.free_grid import calibrate_free_field
+from planeverb.ops import analyzer, fdtd, voxelize
+from planeverb.scene import demo_scene
 
 CFG = PlaneverbConfig(grid_size_x=10.0, grid_size_y=10.0, grid_resolution=275)
 LISTENER = (5.0, 5.0)
@@ -43,7 +43,7 @@ def pair(request):
         scene = None
     else:
         # a local single-wall diffraction scene that fits the 10 m grid
-        from planeverb_tpu.scene import AABB, Scene
+        from planeverb.scene import AABB, Scene
         scene = Scene(boxes=[AABB(6.5, 5.0, 0.75, 6.0, 0.98)], name=name)
     p, out, efree = run_engine(CFG, scene, LISTENER)
     ref = run_oracle(CFG, scene, LISTENER, efree)
@@ -123,7 +123,7 @@ def test_direction_parity(pair):
 
 def test_lazy_walk_matches_pointer_jumping(pair):
     """Per-query host walk == full-grid device DOA on every cell."""
-    from planeverb_tpu.ops.doa import walk_direction
+    from planeverb.ops.doa import walk_direction
 
     name, p, out, ref = pair
     occl = np.asarray(out.occlusion)
@@ -185,7 +185,7 @@ def test_free_field_fixed_domain_matches_full_grid():
     the value must match the reference's full-grid calibration, and the
     cache key must collapse across grid sizes (no full-grid init sims at
     100x-grid scale)."""
-    from planeverb_tpu.core import free_grid
+    from planeverb.core import free_grid
 
     def listener_class(p):
         # which cell the reference's float listener round-trip lands on

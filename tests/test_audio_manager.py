@@ -8,10 +8,10 @@ and the one-callback-drives-everything mix (PlaneverbReverb.cs:45-101).
 import numpy as np
 import pytest
 
-import planeverb_tpu as pv
-from planeverb_tpu.config import PlaneverbDSPConfig
-from planeverb_tpu.sandbox.audio_manager import (AudioSourceManager,
-                                                 PlayingSource)
+import planeverb as pv
+from planeverb.config import PlaneverbDSPConfig
+from planeverb.sandbox.audio_manager import (AudioSourceManager,
+                                             PlayingSource)
 
 CFG = pv.PlaneverbConfig(grid_size_x=10.0, grid_size_y=10.0,
                          grid_resolution=275)
@@ -29,13 +29,13 @@ def ctx():
 def _mgr(ctx, native=True):
     cfg = PlaneverbDSPConfig(max_callback_length=512, sampling_rate=RATE)
     if native:
-        from planeverb_tpu.native import NativeDSPContext, NativeReverb
-        from planeverb_tpu.dsp.gains import T_ER_1, T_ER_2, T_ER_3
+        from planeverb.native import NativeDSPContext, NativeReverb
+        from planeverb.dsp.gains import T_ER_1, T_ER_2, T_ER_3
 
         return AudioSourceManager(
             ctx, NativeDSPContext(cfg),
             reverbs=[NativeReverb(r, RATE) for r in (T_ER_1, T_ER_2, T_ER_3)])
-    from planeverb_tpu.dsp import DSPContext
+    from planeverb.dsp import DSPContext
 
     return AudioSourceManager(ctx, DSPContext(cfg))
 
@@ -98,7 +98,7 @@ def test_two_sources_mix_and_finish(ctx):
 def test_single_source_matches_realtime_player(ctx):
     """One source through the manager == the RealtimePlayer chain (same
     per-block drive), pinning the two surfaces to each other."""
-    from planeverb_tpu.sandbox.realtime import RealtimePlayer
+    from planeverb.sandbox.realtime import RealtimePlayer
 
     audio = _tone(1536)
     eid = ctx.emissions.emit(6.5, 0.0, 5.0, volume_db=-3.0)
@@ -133,8 +133,8 @@ def test_eid_reuse_does_not_inherit_dsp_state(ctx):
     """Emission ids are free-list-reused; sync_dsp must drop the dead
     emitter's DSP interpolation state so the reused id starts fresh
     (a CARDIOID pattern or stale pan from the old sound must not apply)."""
-    from planeverb_tpu.dsp import DSPContext, DirectivityPattern
-    from planeverb_tpu.config import PlaneverbDSPConfig
+    from planeverb.dsp import DSPContext, DirectivityPattern
+    from planeverb.config import PlaneverbDSPConfig
 
     dsp = DSPContext(PlaneverbDSPConfig(max_callback_length=512))
     dsp.set_listener_transform((5.0, 0.0, 5.0), (1.0, 0.0, 0.0))

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 
 import oracle
-from planeverb_tpu.config import PlaneverbConfig, compute_grid_params
-from planeverb_tpu.ops import analyzer, batch, fdtd, voxelize
-from planeverb_tpu.scene import demo_scene
+from planeverb.config import PlaneverbConfig, compute_grid_params
+from planeverb.ops import analyzer, batch, fdtd, voxelize
+from planeverb.scene import demo_scene
 
 CFG = PlaneverbConfig(grid_size_x=10.0, grid_size_y=10.0, grid_resolution=275)
 
@@ -66,8 +66,8 @@ def test_batched_scenes_match_individual_runs():
 
 def test_slice_stack():
     """Per-height slices see different geometry (wall only at low heights)."""
-    from planeverb_tpu.ops.batch import simulate_slices
-    from planeverb_tpu.scene import AABB3D
+    from planeverb.ops.batch import simulate_slices
+    from planeverb.scene import AABB3D
 
     p, _, _, pulse = _setup(T=60)
     boxes3d = [AABB3D(6.0, 1.0, 5.0, 0.5, 2.0, 8.0, 0.97)]  # wall 0..2 m
@@ -81,7 +81,7 @@ def test_slice_stack():
     assert e_high > 2.0 * e_low
 
 
-def test_listeners_auto_off_tpu_matches_vmap():
+def test_listeners_auto_on_cpu_matches_vmap():
     p, beta, refl, pulse = _setup()
     cells = [p.world_to_cell(5.0, 5.0), p.world_to_cell(4.0, 6.0)]
     ixs = jnp.asarray([c[0] for c in cells], jnp.int32)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from planeverb_tpu.config import (CONSTANTS, PlaneverbConfig, Resolution,
-                                  compute_grid_params, gaussian_pulse)
+from planeverb.config import (CONSTANTS, PlaneverbConfig, Resolution,
+                              compute_grid_params, gaussian_pulse)
 
 
 def test_grid_law_low_res_25m():
@@ -68,7 +68,7 @@ def test_analysis_windows():
 def test_material_r_lookup():
     """Name->R plumbing (the reference's material enum -> coefficient
     mapping, PlaneverbObject.cs:203-244)."""
-    from planeverb_tpu.config import MATERIALS, material_r
+    from planeverb.config import MATERIALS, material_r
 
     assert material_r("CONCRETE_ROUGH") == MATERIALS.CONCRETE_ROUGH
     assert material_r("grass") == MATERIALS.GRASS          # case-insensitive

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-import planeverb_tpu as pv
-from planeverb_tpu import api
-from planeverb_tpu.types import INVALID_DRY_GAIN
+import planeverb as pv
+from planeverb import api
+from planeverb.types import INVALID_DRY_GAIN
 
 CFG = pv.PlaneverbConfig(grid_size_x=10.0, grid_size_y=10.0,
                          grid_resolution=275)
@@ -200,9 +200,9 @@ def test_emit_time_attributes_flow_to_dsp():
     """Emit-time volume (dB->gain) and directivity pattern travel with the
     emission and reach the DSP side via Context.sync_dsp — the engine->DSP
     handoff of PlaneverbEmitter.cs:39-121."""
-    from planeverb_tpu.core.emissions import Emission
-    from planeverb_tpu.dsp import DSPContext, DirectivityPattern
-    from planeverb_tpu.config import PlaneverbDSPConfig
+    from planeverb.core.emissions import Emission
+    from planeverb.dsp import DSPContext, DirectivityPattern
+    from planeverb.config import PlaneverbDSPConfig
 
     ctx = pv.Context(CFG, scene=pv.demo_scene("SmallRoom"))
     ctx.set_listener_position(5.0, 0.0, 5.0)
@@ -234,7 +234,7 @@ def test_emit_time_attributes_flow_to_dsp():
 
 
 def test_session_roundtrip_keeps_emitter_attributes(tmp_path):
-    from planeverb_tpu.session import save_session, load_session
+    from planeverb.session import save_session, load_session
 
     ctx = pv.Context(CFG, scene=pv.demo_scene("SmallRoom"))
     ctx.set_listener_position(5.0, 0.0, 5.0)
@@ -288,8 +288,8 @@ def test_cells_publish_mode_matches_grids():
 
 
 def test_mesh_context_matches_single_device():
-    """The multi-chip engine: a Context constructed with a 2x4 device mesh
-    routes step() through the sharded Pallas pipeline
+    """The multi-device engine: a Context constructed with a 2x4 device mesh
+    routes step() through the sharded pipeline
     (parallel.pipeline_sharded) and must publish grids identical (within
     f32 reduction order) to the single-device Context on the same scene.
 
@@ -299,7 +299,7 @@ def test_mesh_context_matches_single_device():
     """
     import jax
 
-    from planeverb_tpu.parallel import grid_mesh
+    from planeverb.parallel import grid_mesh
 
     mesh = grid_mesh(jax.devices(), (2, 4))
     ctx_m = pv.Context(CFG, scene=pv.demo_scene("SmallRoom"), mesh=mesh)
@@ -328,44 +328,12 @@ def test_mesh_context_matches_single_device():
     ctx_m.geometry.remove(gid)
 
 
-def test_mesh_context_auto_overlap_1d():
-    """A Context on a 1D ("x", N) mesh auto-enables the overlap round
-    split (exchange hidden under the interior kernel — bit-identical to
-    the plain rounds, so the engine opts in without a user knob) and
-    publishes the same grids as the single-device engine."""
-    import jax
-
-    from planeverb_tpu.parallel import grid_mesh
-
-    cfg = pv.PlaneverbConfig(grid_size_x=25.0, grid_size_y=25.0,
-                             grid_resolution=275)
-    mesh = grid_mesh(jax.devices(), (8, 1))
-    ctx_m = pv.Context(cfg, scene=pv.demo_scene("SmallRoom"), mesh=mesh,
-                       halo=4)
-    assert ctx_m._overlap          # preconditions hold -> auto-enabled
-    ctx_1 = pv.Context(cfg, scene=pv.demo_scene("SmallRoom"))
-    for ctx in (ctx_m, ctx_1):
-        ctx.set_listener_position(12.5, 0.0, 12.5)
-        ctx.step()
-    a, b = ctx_m._published, ctx_1._published
-    for key in ("occlusion", "wet_gain", "rt60", "lowpass",
-                "direction", "source_directivity", "delay_samples"):
-        np.testing.assert_allclose(a[key], b[key], rtol=2e-4, atol=1e-5,
-                                   err_msg=key)
-    # 2D meshes and too-small shards stay on the plain rounds
-    ctx_2d = pv.Context(cfg, scene=pv.demo_scene("SmallRoom"),
-                        mesh=grid_mesh(jax.devices(), (2, 4)))
-    assert not ctx_2d._overlap
-    ctx_small = pv.Context(CFG, mesh=mesh)     # 10 m: bx < 3*halo
-    assert not ctx_small._overlap
-
-
 def test_mesh_context_cells_publish():
     """publish='cells' on a mesh Context: per-emitter rows come off the
     sharded packed grid in one gather."""
     import jax
 
-    from planeverb_tpu.parallel import grid_mesh
+    from planeverb.parallel import grid_mesh
 
     mesh = grid_mesh(jax.devices(), (2, 4))
     ctx = pv.Context(CFG, scene=pv.demo_scene("SmallRoom"), mesh=mesh,
@@ -395,7 +363,7 @@ def test_mesh_context_validation():
     import jax
     from jax.sharding import Mesh
 
-    from planeverb_tpu.parallel import grid_mesh
+    from planeverb.parallel import grid_mesh
 
     mesh = grid_mesh(jax.devices(), (2, 4))
     with pytest.raises(ValueError, match="halo"):
@@ -403,32 +371,6 @@ def test_mesh_context_validation():
     bad = Mesh(np.asarray(jax.devices()).reshape(2, 4), ("a", "b"))
     with pytest.raises(ValueError, match="axes"):
         pv.Context(CFG, mesh=bad)
-
-
-def test_precision_option():
-    """precision='bf16' is accepted (TPU fused-kernel mode; the CPU scan
-    fallback ignores it, so results here equal the f32 engine), and bad
-    combinations fail fast."""
-    import jax
-
-    from planeverb_tpu.parallel import grid_mesh
-
-    ctx = pv.Context(CFG, scene=pv.demo_scene("SmallRoom"),
-                     precision="bf16")
-    ref = pv.Context(CFG, scene=pv.demo_scene("SmallRoom"))
-    for c in (ctx, ref):
-        c.set_listener_position(5.0, 0.0, 5.0)
-        c.step()
-    a = ctx.result_at(6.0, 5.0)
-    b = ref.result_at(6.0, 5.0)
-    assert a.valid and a.occlusion == pytest.approx(b.occlusion, rel=1e-6)
-    ir = ctx.get_impulse_response(6.0, 5.0)
-    assert ir.dtype == np.float32 and np.abs(ir).max() > 0
-    with pytest.raises(ValueError, match="precision"):
-        pv.Context(CFG, precision="f8")
-    with pytest.raises(ValueError, match="single-device"):
-        pv.Context(CFG, precision="bf16",
-                   mesh=grid_mesh(jax.devices(), (2, 4)))
 
 
 def test_multi_listener_mode():
@@ -492,7 +434,7 @@ def test_multi_listener_on_mesh():
     the single-device multi-listener Context view for view."""
     import jax
 
-    from planeverb_tpu.parallel import grid_mesh
+    from planeverb.parallel import grid_mesh
 
     positions = [(3.0, 0.0, 3.0), (7.0, 0.0, 6.0)]
     mesh_ctx = pv.Context(CFG, scene=pv.demo_scene("SmallRoom"),
@@ -553,8 +495,8 @@ def test_multi_listener_cells_publish():
 def test_multi_listener_sync_dsp_per_view():
     """Each split-screen player's DSP sync pulls that view's parameters
     (Context.sync_dsp(dsp, listener=i))."""
-    from planeverb_tpu.config import PlaneverbDSPConfig
-    from planeverb_tpu.dsp import DSPContext
+    from planeverb.config import PlaneverbDSPConfig
+    from planeverb.dsp import DSPContext
 
     ctx = pv.Context(CFG, scene=pv.demo_scene("SmallRoom"))
     ctx.set_listener_positions([(5.0, 0.0, 5.0), (4.0, 0.0, 6.0)])
@@ -606,26 +548,11 @@ def test_default_listener_coverage_warning_on_first_step():
         ctx.step()
 
 
-def test_mesh_halo_alignment_validated_at_init():
-    """An explicit non-multiple-of-8 halo on a mesh whose shards exceed the
-    VMEM budget (banded-round routing) is rejected at Context construction
-    on TPU, mirroring the kernel-side DMA-alignment check (ADVICE r4). CPU
-    meshes run interpret-mode Pallas, which has no alignment requirement."""
-    from planeverb_tpu.core.context import _validate_mesh_halo
-
-    # 1000x1000-cell shard: far beyond the VMEM budget -> banded routing
-    with pytest.raises(ValueError, match="multiple of 8"):
-        _validate_mesh_halo(1000, 1000, 12, on_tpu=True)
-    _validate_mesh_halo(1000, 1000, 16, on_tpu=True)   # aligned: fine
-    _validate_mesh_halo(1000, 1000, 12, on_tpu=False)  # interpret: fine
-    _validate_mesh_halo(100, 100, 12, on_tpu=True)     # fits VMEM: fine
-
-
 def test_lazy_doa_threshold_r4():
     """After the gather-free DOA rewrite, full direction grids publish on
     device by default up to ~1M cells (LAZY_DOA_CELLS raised 16x in r4);
     the host-walk fallback remains for truly huge grids and by request."""
-    from planeverb_tpu.core.context import LAZY_DOA_CELLS
+    from planeverb.core.context import LAZY_DOA_CELLS
 
     assert LAZY_DOA_CELLS == 1 << 20
     # 95 m @ LOW -> ~266^2 = ~71k cells: lazy under the old 65k threshold,

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from planeverb_tpu.dsp.convolver import (PartitionedConvolver,
-                                         convolve_offline, resample_ir,
-                                         synthetic_ir)
+from planeverb.dsp.convolver import (PartitionedConvolver,
+                                     convolve_offline, resample_ir,
+                                     synthetic_ir)
 
 
 def test_convolve_offline_matches_numpy():

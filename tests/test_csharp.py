@@ -3,7 +3,7 @@
 The reference ships Unity C# components that demonstrably ran in its demo
 game (/root/reference PlaneverbUnityPluginAPI/PlaneverbContext.cs:25-83);
 our equivalent is a DllImport component layer over the C ABI
-(planeverb_tpu/native/src/pv_engine_client.cpp). Two gates:
+(planeverb/native/src/pv_engine_client.cpp). Two gates:
 
   - an ABI-consistency check that always runs: every [DllImport] entry point
     the C# declares must exist as an extern "C" export in the native client
@@ -24,7 +24,7 @@ import pytest
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CS_PATH = os.path.join(_ROOT, "examples", "PlaneverbClient.cs")
-C_PATH = os.path.join(_ROOT, "planeverb_tpu", "native", "src",
+C_PATH = os.path.join(_ROOT, "planeverb", "native", "src",
                       "pv_engine_client.cpp")
 
 

@@ -8,13 +8,13 @@ Reference semantics: /root/reference PlaneverbDSP/src/PvDSPContext.cpp.
 import numpy as np
 import pytest
 
-from planeverb_tpu.config import PlaneverbDSPConfig
-from planeverb_tpu.dsp import (DirectivityPattern, DSPContext, SourceParams,
-                               init_state, render_block)
-from planeverb_tpu.dsp import gains
-from planeverb_tpu.dsp.lowpass import (LowpassState, coefficients, process,
-                                       process_scan)
-from planeverb_tpu.types import PlaneverbOutput, vec2
+from planeverb.config import PlaneverbDSPConfig
+from planeverb.dsp import (DirectivityPattern, DSPContext, SourceParams,
+                           init_state, render_block)
+from planeverb.dsp import gains
+from planeverb.dsp.lowpass import (LowpassState, coefficients, process,
+                                   process_scan)
+from planeverb.types import PlaneverbOutput, vec2
 
 f32 = np.float32
 

@@ -4,9 +4,9 @@ import numpy as np
 import pytest
 
 import oracle
-from planeverb_tpu.config import CONSTANTS, PlaneverbConfig, compute_grid_params
-from planeverb_tpu.ops import fdtd, voxelize
-from planeverb_tpu.scene import demo_scene
+from planeverb.config import CONSTANTS, PlaneverbConfig, compute_grid_params
+from planeverb.ops import fdtd, voxelize
+from planeverb.scene import demo_scene
 
 
 CFG = PlaneverbConfig(grid_size_x=10.0, grid_size_y=10.0, grid_resolution=275)
@@ -104,7 +104,7 @@ def test_velocity_fields_parity():
 def test_reflecting_boundary_conserves_energy():
     """Rigid outer walls (our implementation of the reference's declared-but-
     unimplemented pv_ReflectingBoundary) keep energy in the domain."""
-    from planeverb_tpu.config import BoundaryType
+    from planeverb.config import BoundaryType
     import dataclasses
 
     cfg_r = dataclasses.replace(CFG, grid_boundary_type=BoundaryType.REFLECTING)
@@ -130,7 +130,7 @@ def test_far_corner_onset_on_large_grid():
     sqrt(2)*12.5/c + 0.25 s constant (PvTypes.h:101): an 80 m grid with an
     off-center listener puts the far corner ~107 m away, beyond the old
     435-step (~103 m) onset coverage at 275 Hz."""
-    from planeverb_tpu.config import gaussian_pulse
+    from planeverb.config import gaussian_pulse
 
     cfg = PlaneverbConfig(grid_size_x=80.0, grid_size_y=80.0,
                           grid_resolution=275)

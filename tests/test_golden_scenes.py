@@ -11,10 +11,10 @@ import numpy as np
 import pytest
 
 import oracle
-from planeverb_tpu.config import PlaneverbConfig, compute_grid_params
-from planeverb_tpu.core.free_grid import calibrate_free_field
-from planeverb_tpu.ops import analyzer, fdtd, voxelize
-from planeverb_tpu.scene import demo_scene
+from planeverb.config import PlaneverbConfig, compute_grid_params
+from planeverb.core.free_grid import calibrate_free_field
+from planeverb.ops import analyzer, fdtd, voxelize
+from planeverb.scene import demo_scene
 
 # scene -> grid edge length (m) covering its boxes (listener at center)
 SCENE_GRIDS = {
@@ -150,14 +150,15 @@ def test_rectangular_grid_parity():
     The reference's *analyzer* indexing is undefined for non-square grids
     (Analyzer.cpp:114 quirk, SURVEY.md §7), so the oracle analyzer refuses
     them; the engine's analyzer is checked for physical consistency and the
-    Pallas/sharded solvers are pinned on the same rectangular shape."""
+    blocked-kernel/sharded solvers are pinned on the same rectangular
+    shape."""
     import dataclasses
 
     import jax.numpy as jnp
 
-    from planeverb_tpu.ops.fdtd_pallas import simulate_pallas
-    from planeverb_tpu.parallel import grid_mesh, pad_to_mesh, simulate_sharded
-    from planeverb_tpu.scene import AABB, Scene
+    from planeverb.ops.pipeline import simulate_kernel
+    from planeverb.parallel import grid_mesh, pad_to_mesh, simulate_sharded
+    from planeverb.scene import AABB, Scene
 
     cfg = PlaneverbConfig(grid_size_x=8.0, grid_size_y=14.0,
                           grid_resolution=275)
@@ -197,17 +198,17 @@ def test_rectangular_grid_parity():
     assert np.isfinite(near) and near < far  # delay grows with distance
     assert occ[cx, cy + 1] > 0
 
-    # Pallas fused kernel (interpret) on the rectangular shape
+    # blocked Pallas kernel (interpret) on the rectangular shape
     T = 64
     p_small = dataclasses.replace(p, response_length=T)
     r_scan = fdtd.simulate(p_small, jnp.asarray(beta), jnp.asarray(refl),
                            jnp.asarray(pulse[:T]), lix, liy)
-    r_pal = simulate_pallas(p_small, jnp.asarray(beta), jnp.asarray(refl),
-                            jnp.asarray(pulse[:T]), lix, liy,
-                            interpret=True)
-    np.testing.assert_array_equal(
-        np.asarray(r_pal.pressure)[:, :p.nx, :p.ny],
-        np.asarray(r_scan.pressure))
+    r_k = simulate_kernel(p_small, jnp.asarray(beta), jnp.asarray(refl),
+                          jnp.asarray(pulse[:T]),
+                          jnp.asarray([[lix, liy]], jnp.int32),
+                          interpret=True)
+    np.testing.assert_array_equal(np.asarray(r_k.pressure)[0],
+                                  np.asarray(r_scan.pressure))
 
     # sharded solver on the rectangular shape (2x4 mesh)
     mesh = grid_mesh(shape=(2, 4))

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from planeverb_tpu.config import PlaneverbDSPConfig
-from planeverb_tpu.dsp import DSPContext
-from planeverb_tpu.native import NativeDSPContext
-from planeverb_tpu.types import PlaneverbOutput, vec2
+from planeverb.config import PlaneverbDSPConfig
+from planeverb.dsp import DSPContext
+from planeverb.native import NativeDSPContext
+from planeverb.types import PlaneverbOutput, vec2
 
 f32 = np.float32
 
@@ -103,7 +103,7 @@ def test_native_render_meets_audio_callback_budget():
     of 8 sources + reverbs so the test stays robust on loaded CI boxes."""
     import time
 
-    from planeverb_tpu.native import NativeReverb
+    from planeverb.native import NativeReverb
 
     cfg = PlaneverbDSPConfig(max_callback_length=512)
     nat = NativeDSPContext(cfg)

@@ -8,7 +8,7 @@ Python client on the same server.
 import numpy as np
 import pytest
 
-from planeverb_tpu.server import EngineClient, EngineServer
+from planeverb.server import EngineClient, EngineServer
 
 
 @pytest.fixture()
@@ -21,7 +21,7 @@ def server():
 
 @pytest.fixture()
 def cabi(server):
-    from planeverb_tpu.native import NativeEngineClient
+    from planeverb.native import NativeEngineClient
 
     host, port = server.address
     c = NativeEngineClient(host, port)
@@ -77,7 +77,7 @@ def test_invalid_before_init_and_unknown_ids(cabi):
 
 
 def test_connect_refused():
-    from planeverb_tpu.native import NativeEngineClient
+    from planeverb.native import NativeEngineClient
 
     with pytest.raises(ConnectionError):
         NativeEngineClient("127.0.0.1", 1)  # nothing listens on port 1
@@ -140,7 +140,7 @@ def test_batched_get_outputs_fifty_emitters(cabi, server):
 
 def test_add_geometry_material_through_c_abi(cabi, server):
     """PlaneverbAddGeometryMaterial resolves the name server-side."""
-    from planeverb_tpu.config import MATERIALS
+    from planeverb.config import MATERIALS
 
     cabi.init(10.0, 10.0, resolution=275, background=False)
     gid = cabi.add_geometry(5.0, 5.0, 2.0, 2.0, "WOOD_PANEL")
@@ -166,7 +166,7 @@ def test_c_demo_compiles_and_runs(server, tmp_path):
     import os
     import subprocess
 
-    from planeverb_tpu.native import build_engine_client_library
+    from planeverb.native import build_engine_client_library
 
     lib = build_engine_client_library()
     demo = os.path.join(os.path.dirname(__file__), "..", "examples",

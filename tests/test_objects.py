@@ -9,7 +9,7 @@ the geometry registry, and the SIZE_EPSILON projection shave
 import numpy as np
 import pytest
 
-import planeverb_tpu as pv
+import planeverb as pv
 
 CFG = pv.PlaneverbConfig(grid_size_x=10.0, grid_size_y=10.0,
                          grid_resolution=275)
@@ -61,7 +61,7 @@ def test_head_slice_culling_and_sync():
 def test_projection_matches_calculate_aabb():
     """The projected 2D box is (x, z) center with width/depth extents minus
     SIZE_EPSILON and the object's absorption (PlaneverbObject.cs:163-180)."""
-    from planeverb_tpu.core.objects import SIZE_EPSILON
+    from planeverb.core.objects import SIZE_EPSILON
 
     ctx = _ctx()
     om = pv.ObjectManager(ctx)
@@ -135,7 +135,7 @@ def test_objects_change_acoustics():
 def test_object_material_names():
     """ObjectManager accepts material names where it accepts R floats
     (PlaneverbObject.cs:203-244 enum plumbing)."""
-    from planeverb_tpu.config import MATERIALS
+    from planeverb.config import MATERIALS
 
     ctx = _ctx()
     om = pv.ObjectManager(ctx)

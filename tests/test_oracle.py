@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 
 import oracle
-from planeverb_tpu.config import CONSTANTS, PlaneverbConfig
-from planeverb_tpu.scene import demo_scene
+from planeverb.config import CONSTANTS, PlaneverbConfig
+from planeverb.scene import demo_scene
 
 
 @pytest.fixture(scope="module")

@@ -11,8 +11,8 @@ Pins the three properties the reference's PortAudio loop provides:
 import numpy as np
 import pytest
 
-import planeverb_tpu as pv
-from planeverb_tpu.sandbox.realtime import RealtimePlayer
+import planeverb as pv
+from planeverb.sandbox.realtime import RealtimePlayer
 
 CFG = pv.PlaneverbConfig(grid_size_x=10.0, grid_size_y=10.0,
                          grid_resolution=275)
@@ -53,9 +53,9 @@ def test_bypass_plays_raw_source_with_volume(ctx):
 def test_processed_path_matches_offline_chain(ctx):
     """The paced pump must produce exactly what the native DSP + reverbs
     produce when driven block-by-block directly (same state carryover)."""
-    from planeverb_tpu.config import PlaneverbDSPConfig
-    from planeverb_tpu.native import NativeDSPContext, NativeReverb
-    from planeverb_tpu.dsp.gains import T_ER_1, T_ER_2, T_ER_3
+    from planeverb.config import PlaneverbDSPConfig
+    from planeverb.native import NativeDSPContext, NativeReverb
+    from planeverb.dsp.gains import T_ER_1, T_ER_2, T_ER_3
 
     audio = _tone()
     eid = ctx.emissions.emit(6.5, 0.0, 5.0)
@@ -141,7 +141,7 @@ def test_audio_device_sink_guarded():
     ImportError-crash at import time."""
     import importlib.util
 
-    from planeverb_tpu.sandbox.realtime import AudioDeviceSink
+    from planeverb.sandbox.realtime import AudioDeviceSink
 
     if importlib.util.find_spec("sounddevice") is not None:
         pytest.skip("sounddevice installed; device behavior not testable "

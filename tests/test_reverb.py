@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from planeverb_tpu.dsp.reverb import (init_reverb_state, mix_output,
-                                      reverb_params, reverb_scan)
-from planeverb_tpu.native import NativeReverb
+from planeverb.dsp.reverb import (init_reverb_state, mix_output,
+                                  reverb_params, reverb_scan)
+from planeverb.native import NativeReverb
 
 FS = 22050  # halves buffer sizes vs 44.1k; same math
 

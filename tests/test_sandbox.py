@@ -6,10 +6,10 @@ import os
 import numpy as np
 import pytest
 
-from planeverb_tpu.config import PlaneverbConfig
-from planeverb_tpu.sandbox.cli import main
-from planeverb_tpu.sandbox.sweep import door_sweep
-from planeverb_tpu.sandbox.wav import read_wav, write_wav
+from planeverb.config import PlaneverbConfig
+from planeverb.sandbox.cli import main
+from planeverb.sandbox.sweep import door_sweep
+from planeverb.sandbox.wav import read_wav, write_wav
 
 
 class TestWav:
@@ -102,7 +102,7 @@ class TestCli:
         assert "linear" in out and "dB [-120, 0]" in out and "*" in out
 
     def test_ascii_plot_shape(self):
-        from planeverb_tpu.sandbox.cli import ascii_plot
+        from planeverb.sandbox.cli import ascii_plot
 
         y = np.sin(np.linspace(0, 6.28, 1000))
         s = ascii_plot(y, -1.0, 1.0, width=40, height=8)
@@ -149,7 +149,7 @@ class TestSweep:
         assert buf.getvalue().startswith("door_pos,dry_gain,wet_gain")
 
     def test_ascii_plot_envelope_tracks_decay(self):
-        from planeverb_tpu.sandbox.cli import ascii_plot
+        from planeverb.sandbox.cli import ascii_plot
 
         # decaying dB trace with near-floor samples interleaved: the
         # envelope plot must follow the decay, not the floor
@@ -188,33 +188,20 @@ def test_explore_demo_scripted():
     assert not game.handle("q")       # quit
 
 
-def test_cli_scale_project(capsys):
-    """`scale --project` prints the one-chip-calibrated pod-scale
-    efficiency model (parallel/scaling.py::projected_efficiency)."""
+def test_cli_scale_sweep(capsys):
+    """`scale` measures the sharded solver over growing device counts on
+    the virtual CPU mesh and prints one JSON row per count."""
     import json
 
-    from planeverb_tpu.sandbox.cli import main
+    from planeverb.sandbox.cli import main
 
-    assert main(["scale", "HugeRoom", "--project",
-                 "--grid-size", "133.3", "--resolution", "750"]) == 0
+    assert main(["scale", "SmallRoom", "--grid-size", "6",
+                 "--listener", "3,3", "--halo", "2", "--reps", "1"]) == 0
     rows = [json.loads(line)
             for line in capsys.readouterr().out.strip().splitlines()]
-    assert rows[0]["devices"] == 1 and rows[0]["efficiency"] == 1.0
-    assert all(0.0 < r["efficiency"] <= 1.0 for r in rows)
-
-    # weak + overlap projection (r5): per-chip block fixed, world grows,
-    # 1D overlap meshes — efficiency flat and comm hidden at scale
-    assert main(["scale", "HugeRoom", "--project", "--weak", "--overlap",
-                 "--grid-size", "63", "--resolution", "750"]) == 0
-    wrows = [json.loads(line)
-             for line in capsys.readouterr().out.strip().splitlines()]
-    assert wrows[0]["efficiency"] == 1.0
-    big = [r for r in wrows if r["devices"] >= 16]
-    assert big and all(r["efficiency"] >= 0.85 for r in big)
-    assert all(r.get("comm_hidden", True) for r in big)
-    assert all(r["global_grid"][0] * r["global_grid"][1]
-               > 10 * wrows[0]["global_grid"][0] * wrows[0]["global_grid"][1]
-               for r in big)
+    assert [r["devices"] for r in rows] == [1, 2, 4, 8]
+    assert rows[0]["efficiency_vs_1"] == 1.0
+    assert all(r["wall_s"] > 0 and r["mode"] == "strong" for r in rows)
 
 
 def test_cli_play_device_flag_guarded(tmp_path):
@@ -224,8 +211,8 @@ def test_cli_play_device_flag_guarded(tmp_path):
 
     import numpy as np
 
-    from planeverb_tpu.sandbox.cli import main
-    from planeverb_tpu.sandbox.wav import write_wav
+    from planeverb.sandbox.cli import main
+    from planeverb.sandbox.wav import write_wav
 
     if importlib.util.find_spec("sounddevice") is not None:
         pytest.skip("sounddevice installed; no audio hardware in CI")
@@ -234,3 +221,28 @@ def test_cli_play_device_flag_guarded(tmp_path):
     with pytest.raises(RuntimeError, match="sounddevice"):
         main(["play", "SmallRoom", "--source", "6,5", "--in", str(wav),
               "--device", "--no-pace", "-o", ""])
+
+
+def test_former_package_name_aliases_planeverb():
+    """The package's former name (an alias package beside ``planeverb``)
+    gives the planeverb modules themselves, and ``python -m`` with it finds
+    the CLI's entry point."""
+    import importlib
+    import runpy
+
+    import planeverb
+    import planeverb.core.context
+    import planeverb.sandbox.cli
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(planeverb.__file__)))
+    former = [d for d in os.listdir(root) if d.startswith("planeverb_")
+              and os.path.isfile(os.path.join(root, d, "__init__.py"))]
+    assert len(former) == 1
+    old = former[0]
+    assert importlib.import_module(old) is planeverb
+    alias = importlib.import_module(old + ".core.context")
+    assert alias is planeverb.core.context
+    assert alias.__spec__.name == "planeverb.core.context"
+    assert alias.Context is planeverb.Context
+    ran = runpy.run_module(old, run_name="alias_check")
+    assert ran["main"] is planeverb.sandbox.cli.main

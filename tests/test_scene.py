@@ -2,8 +2,8 @@
 
 import io
 
-from planeverb_tpu.scene import (DEMO_SCENES, AABB, Scene, demo_scene,
-                                 loads_pv, save_pv)
+from planeverb.scene import (DEMO_SCENES, AABB, Scene, demo_scene,
+                             loads_pv, save_pv)
 
 
 def test_pv_roundtrip():
@@ -36,7 +36,7 @@ def test_demo_scene_inventory():
 
 class TestHeadSlice:
     def test_project_to_slice_culls_by_listener_height(self):
-        from planeverb_tpu.scene import AABB3D, project_to_slice
+        from planeverb.scene import AABB3D, project_to_slice
 
         boxes = [
             AABB3D(1.0, 1.0, 2.0, 2.0, 2.0, 3.0, 0.9),   # spans 0..2
@@ -57,7 +57,7 @@ class TestHeadSlice:
 
 
 def test_merge_bounds_encapsulates_children():
-    from planeverb_tpu.scene import AABB3D, merge_bounds
+    from planeverb.scene import AABB3D, merge_bounds
 
     kids = [AABB3D(0.0, 1.0, 0.0, 2.0, 2.0, 2.0, absorption=0.8),
             AABB3D(3.0, 2.0, -1.0, 1.0, 4.0, 1.0)]
@@ -75,8 +75,8 @@ def test_merge_bounds_encapsulates_children():
 def test_pv_material_names():
     """The .pv absorption column accepts material names (extension over the
     reference's numeric-only format, which still parses unchanged)."""
-    from planeverb_tpu.config import MATERIALS
-    from planeverb_tpu.scene import loads_pv
+    from planeverb.config import MATERIALS
+    from planeverb.scene import loads_pv
 
     s = loads_pv("2\n0 1 2 3 4 CONCRETE_ROUGH\n1 5 6 7 8 0.5\n")
     assert s.boxes[0].absorption == MATERIALS.CONCRETE_ROUGH

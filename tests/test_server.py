@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from planeverb_tpu.server import EngineClient, EngineServer
+from planeverb.server import EngineClient, EngineServer
 
 
 @pytest.fixture()
@@ -67,7 +67,7 @@ def test_full_session(client):
 def test_geometry_material_names(server, client):
     """add/update_geometry accept material names where floats are accepted
     (name->R against the 38-entry table, PlaneverbObject.cs:203-244)."""
-    from planeverb_tpu.config import MATERIALS
+    from planeverb.config import MATERIALS
 
     r = client.call("init", grid_size_x=6, grid_size_y=6,
                     grid_resolution=275, background=False)

@@ -1,4 +1,4 @@
-"""Engine-state checkpoint/resume (planeverb_tpu.session)."""
+"""Engine-state checkpoint/resume (planeverb.session)."""
 
 import io
 import re
@@ -6,7 +6,7 @@ import re
 import numpy as np
 import pytest
 
-import planeverb_tpu as pv
+import planeverb as pv
 
 
 CFG = pv.PlaneverbConfig(grid_size_x=10.0, grid_size_y=10.0,
@@ -109,7 +109,7 @@ class TestSessionRoundtrip:
 def test_multi_listener_survives_roundtrip():
     """v3 sessions carry the split-screen listener list; restore returns a
     context in multi-listener mode with every view queryable."""
-    from planeverb_tpu.session import load_session, save_session
+    from planeverb.session import load_session, save_session
 
     positions = [(3.0, 0.0, 3.0), (7.0, 0.0, 6.0)]
     ctx = pv.Context(CFG, scene=pv.demo_scene("SmallRoom"))

@@ -11,9 +11,9 @@ import urllib.request
 import numpy as np
 import pytest
 
-from planeverb_tpu.config import PlaneverbConfig
-from planeverb_tpu.sandbox.viewer import ViewerServer
-from planeverb_tpu.scene import demo_scene, loads_pv
+from planeverb.config import PlaneverbConfig
+from planeverb.sandbox.viewer import ViewerServer
+from planeverb.scene import demo_scene, loads_pv
 
 CFG = PlaneverbConfig(grid_size_x=10.0, grid_size_y=10.0, grid_resolution=275)
 
@@ -50,7 +50,7 @@ def _cmd(viewer, **req):
 
 def test_page_serves(viewer):
     page = _get(viewer, "/")
-    assert "<!doctype html>" in page and "planeverb_tpu" in page
+    assert "<!doctype html>" in page and "planeverb" in page
     assert "/api/state" in page  # the app actually talks to the API
 
 
